@@ -1,14 +1,14 @@
-"""nislam_tpu — a TPU-native non-iterative SLAM framework.
+"""nislam_tpu — a JAX non-iterative SLAM framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 sair-lab/ni-slam reference (monocular downward-facing ground-texture SLAM
 with Kernel Cross-Correlator registration, correlation-based loop closure,
 2D pose-graph optimization and occupancy-map stitching).
 
 Layering (bottom → top), mirroring the reference layer map
-(/root/reference — see SURVEY.md §1) but re-architected TPU-first:
+(/root/reference — see SURVEY.md §1) but re-architected for an accelerator:
 
-- ``ops``      — spectral/warp/registration primitives (XLA + Pallas)
+- ``ops``      — spectral/warp/registration primitives (XLA)
 - ``core``     — SE(2) algebra, camera model, SLAM state machine,
                  loop closure, pose-graph solver, map stitcher
 - ``models``   — composed model families (VO, full SLAM, registration)

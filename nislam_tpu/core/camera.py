@@ -23,7 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from nislam_tpu.core.config import CameraConfig
-from nislam_tpu.core.se2 import rotation2d
+from nislam_tpu.core.se2 import einsum, rotation2d
 from nislam_tpu.ops.warp import bilinear_sample
 
 
@@ -133,11 +133,11 @@ class CameraOps:
     def camera_to_robot(self, pose: jnp.ndarray) -> jnp.ndarray:
         h = self.cfg.height
         v = jnp.stack([h * pose[..., 0], h * pose[..., 1], pose[..., 2]], axis=-1)
-        return jnp.einsum("ij,...j->...i", self.extrinsics, v)
+        return einsum("ij,...j->...i", self.extrinsics, v)
 
     def robot_to_camera(self, pose: jnp.ndarray) -> jnp.ndarray:
         h = self.cfg.height
-        v = jnp.einsum("ij,...j->...i", self.extrinsics_inv, pose)
+        v = einsum("ij,...j->...i", self.extrinsics_inv, pose)
         return jnp.stack([v[..., 0] / h, v[..., 1] / h, v[..., 2]], axis=-1)
 
     def image_plane_to_robot(self, pose: jnp.ndarray) -> jnp.ndarray:
@@ -162,7 +162,7 @@ class CameraOps:
         th = pose[..., 2]
         r = rotation2d(th)
         bias = self._o_bias()
-        corr = bias - jnp.einsum("...ij,j->...i", r, bias)
+        corr = bias - einsum("...ij,j->...i", r, bias)
         xy = pose[..., :2] + corr
         return jnp.concatenate([xy, th[..., None]], axis=-1)
 
@@ -171,7 +171,7 @@ class CameraOps:
         th = pose[..., 2]
         r = rotation2d(th)
         bias = self._o_bias()
-        corr = bias - jnp.einsum("...ij,j->...i", r, bias)
+        corr = bias - einsum("...ij,j->...i", r, bias)
         xy = pose[..., :2] - corr
         return jnp.concatenate([xy, th[..., None]], axis=-1)
 

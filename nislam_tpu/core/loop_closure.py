@@ -1,6 +1,6 @@
 """Correlation-based loop closure: batched candidate re-registration.
 
-TPU-native re-design of ``LoopClosure`` (/root/reference/src/loop_closure.cc).
+Re-design of ``LoopClosure`` (/root/reference/src/loop_closure.cc).
 The reference walks the 3×3 spatial-hash neighborhood and runs one full KCC
 ``ComputePose`` per surviving candidate in a serial loop (loop_closure.cc:
 42-66).  Here the whole search is one batched program:
@@ -123,8 +123,8 @@ def _coarse_fine_search(
 
     Gathers are staged to what each stage touches: all C polar spectra/
     filters + image spectra, but the full-resolution IMAGE filter (the
-    biggest bank tensor) only for the winner — one slot of HBM traffic
-    instead of C.  The winner reuses stage 1's rotation (compute_pose's
+    biggest bank tensor) only for the winner — one slot of device-memory
+    traffic instead of C.  The winner reuses stage 1's rotation (compute_pose's
     ``rotation=`` bypass) rather than re-registering the polar grids.
     """
     cf = cf_ops.cfg

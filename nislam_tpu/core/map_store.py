@@ -1,6 +1,6 @@
-"""Fixed-capacity keyframe + edge stores in HBM.
+"""Fixed-capacity keyframe + edge stores in device memory.
 
-TPU-native re-design of the reference ``Map`` (/root/reference/include/map.h,
+Re-design of the reference ``Map`` (/root/reference/include/map.h,
 /root/reference/src/map.cc): the ``std::map<int, FramePtr>`` keyframe store,
 ``std::map<int, EdgePtr>`` edge store, per-frame travel distance, and the
 spatial hash ``GridMap`` all become preallocated dense arrays with an integer
@@ -167,11 +167,9 @@ def gather_slots_c2r(
 ) -> jnp.ndarray:
     """Gather ``c`` spectral bank slots → complex64 ``(c, *shape)``.
 
-    ``r2c(arr[slots])`` (an XLA gather) on a large bank is catastrophic
-    on TPU: the compiler's mini-gather lowering layout-copies the ENTIRE
-    bank into gather-friendly form first — profiled at the HD config
-    (r5, scripts/hdprofile.py) as 4 × ~1 GB whole-bank copies per loop
-    search, ~60% of total frame time.  ``c`` per-slot ``dynamic_slice``
+    ``r2c(arr[slots])`` (an XLA gather) on a large bank can make the
+    compiler layout-copy the ENTIRE bank into gather-friendly form first.
+    ``c`` per-slot ``dynamic_slice``
     reads touch only the selected slots at the bank's native layout,
     with the f32 upcast applied PER SLICE — converting after
     concatenation lets XLA hoist the layout conversion back onto the
@@ -184,11 +182,10 @@ def gather_slots_c2r(
     assert arr.shape[1:] == (*shape, 2), (arr.shape, shape)
     # Residual (documented, accepted): XLA's layout assignment still
     # reconciles the while-carry bank layout with the slice path's by ONE
-    # whole-bank copy per executed search (~3.4 ms at the HD config —
-    # down from four).  An optimization_barrier around the per-slice
+    # whole-bank copy per executed search.  An optimization_barrier around the per-slice
     # upcast was tried and does not remove it (the copy is placed at the
     # cond-computation boundary, not at the convert); neither does a flat
-    # (K, N) store (3× slower overall — see KeyframeBank).
+    # (K, N) store (slower overall — see KeyframeBank).
     parts = [
         jax.lax.dynamic_slice_in_dim(arr, slots[i], 1, axis=0).astype(
             jnp.float32
@@ -277,7 +274,7 @@ def add_keyframe(
     # Masked write as an out-of-bounds scatter with mode='drop': a disabled
     # insert writes nothing and an enabled one updates ONE slot in place.
     # (A `jnp.where(do, buf.at[slot].set(v), buf)` select would materialize
-    # a full copy of every bank field per insert attempt — gigabytes of HBM
+    # a full copy of every bank field per insert attempt — gigabytes of device-memory
     # traffic per scanned block at 256-slot capacity.)
     wslot = jnp.where(do, slot, k)
 

@@ -1,6 +1,6 @@
 """On-device 2D pose-graph optimizer (Levenberg–Marquardt, dense normal eqs).
 
-TPU-native replacement for the Ceres solver vendored by the reference
+Replacement for the Ceres solver vendored by the reference
 (/root/reference/src/optimization_2d/pose_graph_2d.cc).  Same problem, new
 solve path:
 
@@ -21,7 +21,7 @@ Instead of Ceres' sparse Cholesky on CPU, the normal equations are assembled
 **densely** by scatter-adding 3×3 edge blocks into a ``(3K, 3K)`` matrix and
 solved with an on-device Cholesky — SLAM graphs here are ≤ a few thousand
 nodes, where one fused assembly + ``cho_solve`` beats any sparse structure on
-the MXU.  Everything is masked static-shape, so the whole solve runs under
+the accelerator.  Everything is masked static-shape, so the whole solve runs under
 ``jit``/``lax.cond`` inside the SLAM step.  A matrix-free CG variant for
 sharded multi-host graphs lives in ``nislam_tpu.parallel.solver``.
 
@@ -40,7 +40,7 @@ from typing import NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 
-from nislam_tpu.core.se2 import normalize_angle, rotation2d
+from nislam_tpu.core.se2 import einsum, normalize_angle, rotation2d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,10 +84,10 @@ def residuals(
     pb = poses[prob.to_slot]
     rat = rotation2d(pa[:, 2])  # (E, 2, 2)
     dp = pb[:, :2] - pa[:, :2]
-    r_xy = jnp.einsum("eji,ej->ei", rat, dp) - scale * prob.T[:, :2]
+    r_xy = einsum("eji,ej->ei", rat, dp) - scale * prob.T[:, :2]
     r_th = normalize_angle(pb[:, 2] - pa[:, 2] - prob.T[:, 2])
     r = jnp.concatenate([r_xy, r_th[:, None]], axis=-1)
-    r = jnp.einsum("eij,ej->ei", prob.sqrt_info, r)
+    r = einsum("eij,ej->ei", prob.sqrt_info, r)
     return jnp.where(prob.edge_mask[:, None], r, 0.0)
 
 
@@ -127,9 +127,9 @@ def _edge_jacobians(
         axis=-2,
     )
     js = jnp.concatenate([-prob.T[:, :2], jnp.zeros_like(th)[:, None]], axis=-1)
-    ja = jnp.einsum("eij,ejk->eik", prob.sqrt_info, ja)
-    jb = jnp.einsum("eij,ejk->eik", prob.sqrt_info, jb)
-    js = jnp.einsum("eij,ej->ei", prob.sqrt_info, js)
+    ja = einsum("eij,ejk->eik", prob.sqrt_info, ja)
+    jb = einsum("eij,ejk->eik", prob.sqrt_info, jb)
+    js = einsum("eij,ej->ei", prob.sqrt_info, js)
     m = prob.edge_mask[:, None]
     return ja * m[..., None], jb * m[..., None], js * m
 
@@ -148,11 +148,11 @@ def _assemble_normal_eqs(
     cost = 0.5 * jnp.sum(r * r)
     ja, jb, js = _edge_jacobians(poses, prob, scale)
 
-    haa = jnp.einsum("eji,ejk->eik", ja, ja)
-    hab = jnp.einsum("eji,ejk->eik", ja, jb)
-    hbb = jnp.einsum("eji,ejk->eik", jb, jb)
-    ga = jnp.einsum("eji,ej->ei", ja, r)
-    gb = jnp.einsum("eji,ej->ei", jb, r)
+    haa = einsum("eji,ejk->eik", ja, ja)
+    hab = einsum("eji,ejk->eik", ja, jb)
+    hbb = einsum("eji,ejk->eik", jb, jb)
+    ga = einsum("eji,ej->ei", ja, r)
+    gb = einsum("eji,ej->ei", jb, r)
 
     h = jnp.zeros((k, 3, k, 3), jnp.float32)
     f, t = prob.from_slot, prob.to_slot
@@ -166,8 +166,8 @@ def _assemble_normal_eqs(
     g = g.reshape(3 * k)
     if est_scale:
         hs_col = jnp.zeros((k, 3), jnp.float32)
-        hs_col = hs_col.at[f].add(jnp.einsum("eij,ei->ej", ja, js))
-        hs_col = hs_col.at[t].add(jnp.einsum("eij,ei->ej", jb, js))
+        hs_col = hs_col.at[f].add(einsum("eij,ei->ej", ja, js))
+        hs_col = hs_col.at[t].add(einsum("eij,ei->ej", jb, js))
         hs_col = hs_col.reshape(3 * k)
         hss = jnp.sum(js * js)
         gs = jnp.sum(js * r)

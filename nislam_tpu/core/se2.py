@@ -8,9 +8,15 @@ Poses are ``(..., 3)`` arrays ``(x, y, θ)``.  Parity with
 
 from __future__ import annotations
 
+import functools
 import math
 
+import jax
 import jax.numpy as jnp
+
+# Pose and pose-graph contractions feed keyframe decisions and the solve:
+# keep them in full float32 (a GPU may otherwise run float32 dots in TF32).
+einsum = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 
 def normalize_angle(theta: jnp.ndarray) -> jnp.ndarray:
@@ -32,7 +38,7 @@ def relative_pose(pose1: jnp.ndarray, pose2: jnp.ndarray) -> jnp.ndarray:
     """Pose of 2 expressed in frame 1: ``(R1ᵀ(p2−p1), normalize(θ2−θ1))``."""
     r1t = rotation2d(pose1[..., 2])
     dp = pose2[..., :2] - pose1[..., :2]
-    xy = jnp.einsum("...ji,...j->...i", r1t, dp)
+    xy = einsum("...ji,...j->...i", r1t, dp)
     th = normalize_angle(pose2[..., 2] - pose1[..., 2])
     return jnp.concatenate([xy, th[..., None]], axis=-1)
 
@@ -40,6 +46,6 @@ def relative_pose(pose1: jnp.ndarray, pose2: jnp.ndarray) -> jnp.ndarray:
 def absolute_pose(pose1: jnp.ndarray, rel: jnp.ndarray) -> jnp.ndarray:
     """Compose: world pose of ``rel`` given in frame ``pose1``."""
     r1 = rotation2d(pose1[..., 2])
-    xy = pose1[..., :2] + jnp.einsum("...ij,...j->...i", r1, rel[..., :2])
+    xy = pose1[..., :2] + einsum("...ij,...j->...i", r1, rel[..., :2])
     th = normalize_angle(pose1[..., 2] + rel[..., 2])
     return jnp.concatenate([xy, th[..., None]], axis=-1)

@@ -1,6 +1,6 @@
 """Occupancy-mosaic map stitcher: scatter-add rasterization on device.
 
-TPU-native re-design of ``MapStitcher`` (/root/reference/src/map_stitcher.cc).
+Re-design of ``MapStitcher`` (/root/reference/src/map_stitcher.cc).
 The reference forward-rasterizes every keyframe pixel through its pose into
 hash-keyed 1000×1000 integer cells with a per-pixel double loop
 (map_stitcher.cc:95-111) and re-averages incrementally.  Here the map is a

@@ -2,6 +2,7 @@
 
 from nislam_tpu.io.dataset import (  # noqa: F401
     ImageFolderDataset,
+    NisfDataset,
     SyntheticDataset,
     TumRgbdDataset,
     open_dataset,

@@ -49,6 +49,13 @@ def _imread_gray_u8(path: str) -> np.ndarray:
         ) from exc
 
 
+def _normalized(img: np.ndarray, t: float) -> Tuple[np.ndarray, float]:
+    """uint8 frames → float32 [0, 1]; float frames pass through."""
+    if img.dtype == np.uint8:
+        img = img.astype(np.float32) / 255.0
+    return img, t
+
+
 def _imread_gray(path: str) -> np.ndarray:
     """Grayscale float32 [0,1] image."""
     return _imread_gray_u8(path).astype(np.float32) / 255.0
@@ -178,10 +185,15 @@ class TumRgbdDataset(_Base):
 
 
 class SyntheticDataset(_Base):
-    """In-memory frames (tests/benchmarks); timestamps at a fixed rate."""
+    """In-memory frames (tests/benchmarks); timestamps at a fixed rate.
+
+    uint8 frames are kept as 8-bit camera data (:meth:`get` normalizes,
+    :meth:`get_raw` and :meth:`pack` keep uint8); any other dtype is
+    taken as float32 in [0, 1]."""
 
     def __init__(self, frames: np.ndarray, rate_hz: float = 30.0, t0: float = 0.0):
-        self.frames = np.asarray(frames, np.float32)
+        frames = np.asarray(frames)
+        self.frames = frames if frames.dtype == np.uint8 else frames.astype(np.float32)
         self.rate = rate_hz
         self.t0 = t0
 
@@ -189,7 +201,37 @@ class SyntheticDataset(_Base):
         return len(self.frames)
 
     def get(self, idx: int) -> Tuple[np.ndarray, float]:
+        return _normalized(*self.get_raw(idx))
+
+    def get_raw(self, idx: int) -> Tuple[np.ndarray, float]:
         return self.frames[idx], self.t0 + idx / self.rate
+
+
+class NisfDataset(_Base):
+    """A packed NISF file (:meth:`_Base.pack`) read through ``numpy.memmap``
+    — the reader where the native loader cannot be built."""
+
+    def __init__(self, path: str):
+        import struct
+
+        with open(path, "rb") as f:
+            magic, version, n, h, w = struct.unpack("<4sIIII", f.read(20))
+        if magic != b"NISF" or version not in (1, 2):
+            raise ValueError(f"{path}: not a NISF v1/v2 file")
+        self.times = np.memmap(path, "<f8", "r", offset=20, shape=(n,))
+        self.frames = np.memmap(
+            path, np.uint8 if version == 2 else "<f4", "r",
+            offset=20 + 8 * n, shape=(n, h, w),
+        )
+
+    def __len__(self) -> int:
+        return len(self.times)
+
+    def get(self, idx: int) -> Tuple[np.ndarray, float]:
+        return _normalized(*self.get_raw(idx))
+
+    def get_raw(self, idx: int) -> Tuple[np.ndarray, float]:
+        return np.asarray(self.frames[idx]), float(self.times[idx])
 
 
 def open_dataset(dataroot: str, image_dir_name: str = "rgb") -> _Base:

@@ -1,4 +1,4 @@
-"""TPU compute-path primitives: FFTs, warps, and KCC registration."""
+"""Compute-path primitives: FFTs, warps, and KCC registration."""
 
 from nislam_tpu.ops.fft import (  # noqa: F401
     fftshift2,

@@ -17,29 +17,13 @@ The inverse transform normalizes by ``1/(H*W)`` exactly like the reference's
 ``IFFT`` (``src/correlation_flow.cc:76``: ``x / x.size()``), which is also
 numpy's default ``irfft2`` normalization.
 
-Two interchangeable backends:
-
-- ``xla`` — ``jnp.fft`` (the FFT HLO).  Exact, but on the TPU backends
-  available here it is slow to run (measured ~1.5 ms for one 256×256
-  roundtrip) and pathologically slow to compile (minutes for the first FFT
-  program).
-- ``mm`` — **matmul-DFT**: the DFT applied as dense (real-pair) matrix
-  products on the MXU, with the conjugate-symmetric half-spectrum folded
-  into the inverse matrix.  At KCC problem sizes (240–720 per axis) the
-  O(N·M·(N+M)) matmul flops are noise next to memory traffic, the MXU
-  executes them at full tilt, and compiles take seconds.  Measured 1.5–2.2×
-  faster than ``xla`` end-to-end on the bench TPU at every relevant size.
-
-Backend selection: ``NISLAM_FFT`` env var (``mm``/``xla``), default ``auto``
-= ``mm`` on accelerators, ``xla`` on CPU (tests compare against NumPy
-oracles there).
+Every transform is ``jnp.fft`` (the FFT HLO: cuFFT on the GPU, DUCC on
+the CPU) in float32.
 """
 
 from __future__ import annotations
 
-import functools
 import math
-import os
 
 import jax
 import jax.numpy as jnp
@@ -50,11 +34,11 @@ def c2r(x: jnp.ndarray) -> jnp.ndarray:
     """Complex (..., N) → float32 (..., N, 2) real view.
 
     Persistent state (keyframe banks, tracking carries, checkpoints) stores
-    spectra in this form: some TPU runtimes implement gather/scatter and
-    host transfers only for real dtypes, and float storage is universally
-    portable.  Complex values exist only transiently inside a jitted
-    program between :func:`rfft2` and its consumers; XLA fuses these view
-    conversions into the neighboring ops for free.
+    spectra in this form: float storage is portable across backends,
+    checkpoints and reduced-precision banks (``MapConfig.bank_dtype``).
+    Complex values exist only transiently inside a jitted program between
+    :func:`rfft2` and its consumers; XLA fuses these view conversions into
+    the neighboring ops.
     """
     return jnp.stack([jnp.real(x), jnp.imag(x)], axis=-1)
 
@@ -70,488 +54,13 @@ def r2c(y: jnp.ndarray) -> jnp.ndarray:
     return jax.lax.complex(y[..., 0], y[..., 1])
 
 
-_BACKEND: str | None = None  # resolved once, then frozen (see fft_backend)
-_MM_LO = "unset"  # sentinel; resolved once in _mm_dtype
-
-
-def fft_backend() -> str:
-    """Resolve the transform backend (see module docstring).
-
-    Resolved ONCE per process (first call) and then frozen: jitted engine
-    programs bake the backend into their traces, so re-reading the env var
-    mid-process would silently split the program cache between backends.
-    Changing ``NISLAM_FFT`` requires a fresh process; tests use
-    :func:`set_fft_backend`, which also drops all cached jit programs.
-    """
-    global _BACKEND
-    if _BACKEND is None:
-        env = os.environ.get("NISLAM_FFT", "auto")
-        if env in ("mm", "xla"):
-            _BACKEND = env
-        elif env == "auto":
-            _BACKEND = "xla" if jax.default_backend() == "cpu" else "mm"
-        else:
-            raise ValueError(
-                f"NISLAM_FFT={env!r} — expected 'mm', 'xla', or 'auto'"
-            )
-    return _BACKEND
-
-
-def set_fft_backend(backend: str | None) -> None:
-    """Force the transform backend ("mm"/"xla") or reset to auto (None).
-
-    Clears JAX's program caches so no trace from the previous backend
-    survives — mixed-backend cached programs were ADVICE r2 finding #5.
-    """
-    global _BACKEND
-    if backend not in ("mm", "xla", None):
-        raise ValueError(f"invalid backend {backend!r}")
-    _BACKEND = backend
-    jax.clear_caches()
-
-
-# ---------------------------------------------------------------------------
-# matmul-DFT constant factories (host-side, cached per axis length)
-# ---------------------------------------------------------------------------
-
-_PREC_DEFAULT = jax.lax.Precision.HIGHEST  # full-f32 MXU passes
-_PREC = "unset"  # sentinel; resolved once in _mm_precision
-
-
-def _mm_precision():
-    """Matmul-DFT MXU precision. ``NISLAM_MM_PRECISION``:
-
-    - ``highest`` (default) — full-f32 emulation (6 bf16 MXU passes).
-    - ``high`` — bf16x3 (3 passes, ~2x throughput).  **Measured and
-      rejected as a default** (docs/EVAL_r3.md): at 640×480 both ``high``
-      and raw bf16 operands collapse the correlation PSR below the
-      reference-derived tracking gates (tracked_frac 0.025 resp. 0.002) —
-      the KCC filter solve ``target/(Kzz+λ)`` spans the full f32 dynamic
-      range at that size.  The knob remains for experimentation on easier
-      workloads.
-
-    Resolved once per process (same trace-baking hazard as
-    :func:`fft_backend`); use :func:`set_mm_precision` to change it."""
-    global _PREC
-    if _PREC == "unset":
-        env = os.environ.get("NISLAM_MM_PRECISION", "highest")
-        if env not in ("highest", "high"):
-            # Match NISLAM_FFT's unknown-value handling: never let a typo
-            # silently no-op the experimentation knob (ADVICE r3 #2).
-            raise ValueError(
-                f"NISLAM_MM_PRECISION={env!r} — expected 'highest' or 'high'"
-            )
-        _PREC = jax.lax.Precision.HIGH if env == "high" else _PREC_DEFAULT
-    return _PREC
-
-
-def set_mm_precision(precision) -> None:
-    """Pin the matmul-DFT precision (None = default HIGHEST) and drop
-    cached traces."""
-    global _PREC
-    _PREC = _PREC_DEFAULT if precision is None else precision
-    jax.clear_caches()
-
-
-def _mm_dtype():
-    """Matmul-DFT input dtype: ``NISLAM_MM_DTYPE=bf16`` halves the bytes
-    every transform moves (the bottleneck on bandwidth-bound devices) by
-    feeding the MXU bf16 operands with f32 accumulation.  Camera images are
-    8-bit; bf16 spectra lose ~3 decimal digits, which the correlation
-    argmax tolerates — gate with the bench ATE before enabling in
-    production.  Default: full f32.  Resolved once per process (same
-    trace-baking hazard as :func:`fft_backend`); use :func:`set_mm_dtype`
-    to change it mid-process."""
-    global _MM_LO
-    if _MM_LO == "unset":
-        env = os.environ.get("NISLAM_MM_DTYPE", "f32")
-        if env not in ("f32", "bf16"):
-            raise ValueError(f"NISLAM_MM_DTYPE={env!r} — expected 'f32' or 'bf16'")
-        _MM_LO = jnp.bfloat16 if env == "bf16" else None
-    return _MM_LO
-
-
-def set_mm_dtype(dtype) -> None:
-    """Pin the matmul-DFT input dtype (None = f32) and drop cached traces."""
-    global _MM_LO
-    _MM_LO = dtype
-    jax.clear_caches()
-
-
-@functools.lru_cache(maxsize=None)
-def _rdft_consts(n: int):
-    """(fwd_re, fwd_im) of the (n, n//2+1) truncated DFT and
-    (inv_re, inv_im) of the (n//2+1, n) half→real inverse with the
-    conjugate-symmetric fold (weight 2 on interior bins) built in."""
-    k = np.arange(n)
-    m = np.exp(-2j * np.pi * np.outer(k, k) / n)
-    n2 = n // 2 + 1
-    fwd = m[:, :n2]
-    dbl = np.ones(n2)
-    dbl[1:(n + 1) // 2] = 2.0
-    inv = ((np.conj(m) / n)[:, :n2] * dbl).T  # (n2, n), 1/n normalization
-    return (
-        fwd.real.astype(np.float32),
-        fwd.imag.astype(np.float32),
-        inv.real.astype(np.float32),
-        inv.imag.astype(np.float32),
-    )
-
-
-@functools.lru_cache(maxsize=None)
-def _cdft_consts(n: int):
-    """Full (n, n) complex DFT and its 1/n inverse, as real pairs."""
-    k = np.arange(n)
-    m = np.exp(-2j * np.pi * np.outer(k, k) / n)
-    mi = np.conj(m) / n
-    return (
-        m.real.astype(np.float32),
-        m.imag.astype(np.float32),
-        mi.real.astype(np.float32),
-        mi.imag.astype(np.float32),
-    )
-
-
-# Concatenated-constant variants: the (re, im) planes of every DFT stage
-# ride ONE matmul instead of 2–4.  A complex product (A+iB)(x+iy) needs the
-# four real products Ax, Ay, Bx, By; stacking [A; B] row-wise and [x y]
-# column-wise yields all four as the blocks of a single (2n, 2m) matmul —
-# halving-to-quartering the op count per transform, which is the currency
-# on a dispatch/overhead-bound device, and feeding the MXU wider tiles.
-
-
-@functools.lru_cache(maxsize=None)
-def _rdft_fwd_cat(n: int):
-    """[fwd_re | fwd_im] (n, 2·(n//2+1)): x @ cat = [Re(F) | Im(F)]."""
-    fr, fi, _, _ = _rdft_consts(n)
-    return np.concatenate([fr, fi], axis=1)
-
-
-@functools.lru_cache(maxsize=None)
-def _rdft_inv_cat(n: int):
-    """[inv_re ; -inv_im] (2·(n//2+1), n): [re | im] @ cat = re@inv_re − im@inv_im."""
-    _, _, ir, ii = _rdft_consts(n)
-    return np.concatenate([ir, -ii], axis=0)
-
-
-@functools.lru_cache(maxsize=None)
-def _cdft_fwd_cat(n: int):
-    """[fwd_re ; fwd_im] (2n, n) — left-applied: cat @ x = [re@x ; im@x]."""
-    fr, fi, _, _ = _cdft_consts(n)
-    return np.concatenate([fr, fi], axis=0)
-
-
-@functools.lru_cache(maxsize=None)
-def _cdft_inv_cat(n: int):
-    """[inv_re ; inv_im] (2n, n) — left-applied inverse stages."""
-    _, _, ir, ii = _cdft_consts(n)
-    return np.concatenate([ir, ii], axis=0)
-
-
-def _mm(a, b):
-    lo = _mm_dtype()
-    if lo is not None:
-        return jnp.matmul(
-            a.astype(lo), b.astype(lo), preferred_element_type=jnp.float32
-        )
-    return jnp.matmul(a, b, precision=_mm_precision())
-
-
-def _emm(spec, m, x):
-    lo = _mm_dtype()
-    if lo is not None:
-        return jnp.einsum(
-            spec, m.astype(lo), x.astype(lo),
-            preferred_element_type=jnp.float32,
-        )
-    return jnp.einsum(spec, m, x, precision=_mm_precision())
-
-
-def _rfft2_mm(x: jnp.ndarray) -> jnp.ndarray:
-    h, w = x.shape[-2], x.shape[-1]
-    w2 = w // 2 + 1
-    # W axis: one matmul yields both planes side by side.
-    t = _mm(x, jnp.asarray(_rdft_fwd_cat(w)))  # (..., H, 2w2) = [tr | ti]
-    # H axis: one matmul yields all four block products.
-    u = _emm("ij,...jk->...ik", jnp.asarray(_cdft_fwd_cat(h)), t)
-    rr = u[..., :h, :w2] - u[..., h:, w2:]
-    ri = u[..., :h, w2:] + u[..., h:, :w2]
-    return jax.lax.complex(rr, ri)
-
-
-def _irfft2_mm(xf: jnp.ndarray, shape: tuple[int, int]) -> jnp.ndarray:
-    h, w = shape
-    w2 = w // 2 + 1
-    iw_cat = jnp.asarray(_rdft_inv_cat(w))  # [iwr ; -iwi]
-    if jnp.iscomplexobj(xf):
-        s = jnp.concatenate([jnp.real(xf), jnp.imag(xf)], axis=-1)
-        u = _emm("ij,...jk->...ik", jnp.asarray(_cdft_inv_cat(h)), s)
-        ur = u[..., :h, :w2] - u[..., h:, w2:]
-        ui = u[..., :h, w2:] + u[..., h:, :w2]
-        v = jnp.concatenate([ur, ui], axis=-1)  # (..., H, 2w2) = [ur | ui]
-    else:  # real "spectrum" (e.g. a magnitude): imaginary part is zero
-        rr = xf.astype(jnp.float32)
-        u = _emm("ij,...jk->...ik", jnp.asarray(_cdft_inv_cat(h)), rr)
-        v = jnp.concatenate([u[..., :h, :], u[..., h:, :]], axis=-1)
-    return _mm(v, iw_cat)  # ur@iwr − ui@iwi
-
-
-# ---------------------------------------------------------------------------
-# Cooley–Tukey-factored matmul-DFT for large axes (the HD-config path)
-# ---------------------------------------------------------------------------
-#
-# The dense matmul-DFT above costs O(N²) MACs per transformed axis — a
-# winning trade against the XLA FFT HLO at KCC flagship sizes (240–720),
-# but a losing one at the reference's HD config (1200×1600,
-# /root/reference/configs/config_HD.yaml:9-17): the W=1600 constant alone
-# is ~6× the flops of W=640 *per transform per axis* (VERDICT r4 weak #1,
-# the 20× fps cliff).  For composite N = N1·N2 the textbook
-# decimation-in-time split
-#
-#   X[k1 + N1·k2] = Σ_{n2} W_N^{∓n2·k1} (Σ_{n1} x[N2·n1+n2] W_{N1}^{∓n1·k1})
-#                   · W_{N2}^{∓n2·k2}
-#
-# turns one (N, N) matmul into an (N1, N1) stage, an elementwise twiddle,
-# and an (N2, N2) stage: N·(N1+N2) MACs instead of N² — at N=1600=40·40
-# a 20× flop cut, after which the transform is HBM-bandwidth-bound like
-# everything else.  Both stages are still dense matmuls on the MXU with
-# static shapes; the factorization works identically for either DFT sign,
-# so the inverse is the same routine with conjugated constants and the
-# full 1/N folded into the inner matrix.
-#
-# Dispatch: axes with N ≥ NISLAM_CT_MIN (default 1024) and a usable
-# balanced factorization take the factored path; smaller axes keep the
-# measured-optimal dense constants.  The flagship 640×480/720×480 program
-# is therefore byte-identical to r4's.
-
-
-_CT_MIN_DEFAULT = 1024
-_CT_MIN: int | str = "unset"  # sentinel; resolved once in _ct_min
-
-
-def _ct_min() -> int:
-    """Axis-length threshold for the factored path (``NISLAM_CT_MIN``;
-    0/"off" disables).  Resolved once per process — same trace-baking
-    hazard as :func:`fft_backend`; tests use :func:`set_ct_min`."""
-    global _CT_MIN
-    if _CT_MIN == "unset":
-        env = os.environ.get("NISLAM_CT_MIN", str(_CT_MIN_DEFAULT))
-        if env == "off":
-            _CT_MIN = 1 << 62
-        else:
-            _CT_MIN = int(env)
-            if _CT_MIN <= 0:
-                _CT_MIN = 1 << 62
-    return _CT_MIN
-
-
-def set_ct_min(n: int | None) -> None:
-    """Pin the factored-DFT threshold (None = default, ≤0 = disabled —
-    the same mapping as the env path) and drop cached traces (tests
-    exercise the factored path at small sizes this way)."""
-    global _CT_MIN
-    if n is None:
-        _CT_MIN = _CT_MIN_DEFAULT
-    elif int(n) <= 0:
-        _CT_MIN = 1 << 62
-    else:
-        _CT_MIN = int(n)
-    jax.clear_caches()
-
-
-@functools.lru_cache(maxsize=None)
-def _ct_split(n: int) -> tuple[int, int] | None:
-    """Most balanced (n1, n2) with n1·n2 = n, or None when no split wins
-    (prime or near-prime N: the factored stages would approach the dense
-    cost while paying two extra reshuffles)."""
-    n1 = 0
-    i = math.isqrt(n)
-    while i >= 2:
-        if n % i == 0:
-            n1 = i
-            break
-        i -= 1
-    if n1 == 0:
-        return None
-    n2 = n // n1
-    if (n1 + n2) * 2 > n:  # near-prime: stages approach the dense cost
-        return None
-    return (n1, n2)
-
-
-def _use_ct(n: int) -> bool:
-    return n >= _ct_min() and _ct_split(n) is not None
-
-
-@functools.lru_cache(maxsize=None)
-def _ct_consts(n: int, inverse: bool):
-    """(w1r, w1i, twr, twi, w2r, w2i) — inner (N1, N1) DFT, (N1, N2)
-    twiddle, outer (N2, N2) DFT, as f32 planes.  Inverse variants are
-    conjugated with the full 1/N folded into the inner matrix."""
-    n1, n2 = _ct_split(n)
-    s = 2j * np.pi if inverse else -2j * np.pi
-    j1 = np.arange(n1)
-    j2 = np.arange(n2)
-    w1 = np.exp(s * np.outer(j1, j1) / n1)  # symmetric: [k1, n1] == [n1, k1]
-    w2 = np.exp(s * np.outer(j2, j2) / n2)  # symmetric: [n2, k2]
-    tw = np.exp(s * np.outer(j1, j2) / n)  # [k1, n2]
-    if inverse:
-        w1 = w1 / n
-    return (
-        w1.real.astype(np.float32),
-        w1.imag.astype(np.float32),
-        tw.real.astype(np.float32),
-        tw.imag.astype(np.float32),
-        w2.real.astype(np.float32),
-        w2.imag.astype(np.float32),
-    )
-
-
-def _ct_dft_last(xr, xi, n: int, inverse: bool, out_imag: bool = True):
-    """Factored full complex DFT along the last axis.
-
-    ``xi=None`` marks purely-real input (halves stage 1);
-    ``out_imag=False`` skips the imaginary output (the final c2r stage of
-    an inverse real transform).  Returns ``(yr, yi)`` in natural index
-    order — stage 3's einsum emits the [k2][k1] layout directly, so the
-    CT output permutation is a free reshape.
-    """
-    n1, n2 = _ct_split(n)
-    w1r, w1i, twr, twi, w2r, w2i = (
-        jnp.asarray(a) for a in _ct_consts(n, inverse)
-    )
-    lead = xr.shape[:-1]
-    xr_ = xr.reshape(*lead, n1, n2)
-    ar = _emm("kj,...jn->...kn", w1r, xr_)
-    ai = _emm("kj,...jn->...kn", w1i, xr_)
-    if xi is not None:
-        xi_ = xi.reshape(*lead, n1, n2)
-        ar = ar - _emm("kj,...jn->...kn", w1i, xi_)
-        ai = ai + _emm("kj,...jn->...kn", w1r, xi_)
-    br = ar * twr - ai * twi
-    bi = ar * twi + ai * twr
-    yr = _emm("...kn,nc->...ck", br, w2r) - _emm("...kn,nc->...ck", bi, w2i)
-    yr = yr.reshape(*lead, n)
-    if not out_imag:
-        return yr, None
-    yi = _emm("...kn,nc->...ck", br, w2i) + _emm("...kn,nc->...ck", bi, w2r)
-    return yr, yi.reshape(*lead, n)
-
-
-def _ct_dft_ax2(xr, xi, n: int, inverse: bool, out_imag: bool = True):
-    """Factored full complex DFT along axis -2 (same math as
-    :func:`_ct_dft_last` with the trailing axis carried through)."""
-    n1, n2 = _ct_split(n)
-    w1r, w1i, twr, twi, w2r, w2i = (
-        jnp.asarray(a) for a in _ct_consts(n, inverse)
-    )
-    lead, m = xr.shape[:-2], xr.shape[-1]
-    xr_ = xr.reshape(*lead, n1, n2, m)
-    ar = _emm("kj,...jnm->...knm", w1r, xr_)
-    ai = _emm("kj,...jnm->...knm", w1i, xr_)
-    if xi is not None:
-        xi_ = xi.reshape(*lead, n1, n2, m)
-        ar = ar - _emm("kj,...jnm->...knm", w1i, xi_)
-        ai = ai + _emm("kj,...jnm->...knm", w1r, xi_)
-    tr = twr[:, :, None]
-    ti = twi[:, :, None]
-    br = ar * tr - ai * ti
-    bi = ar * ti + ai * tr
-    yr = _emm("nc,...knm->...ckm", w2r, br) - _emm("nc,...knm->...ckm", w2i, bi)
-    yr = yr.reshape(*lead, n, m)
-    if not out_imag:
-        return yr, None
-    yi = _emm("nc,...knm->...ckm", w2i, br) + _emm("nc,...knm->...ckm", w2r, bi)
-    return yr, yi.reshape(*lead, n, m)
-
-
-def _mirror_half_spectrum(tr, ti, n: int, axis: int):
-    """Extend a half spectrum (n//2+1 bins) to the full n bins via the
-    conjugate symmetry ``X[n-k] = conj(X[k])`` along ``axis`` (-1/-2)."""
-    n2 = n // 2 + 1
-    if axis == -1:
-        mr = jnp.flip(tr[..., 1 : n - n2 + 1], axis=-1)
-        mi = -jnp.flip(ti[..., 1 : n - n2 + 1], axis=-1)
-    else:
-        mr = jnp.flip(tr[..., 1 : n - n2 + 1, :], axis=-2)
-        mi = -jnp.flip(ti[..., 1 : n - n2 + 1, :], axis=-2)
-    return (
-        jnp.concatenate([tr, mr], axis=axis),
-        jnp.concatenate([ti, mi], axis=axis),
-    )
-
-
-def _rfft2_mm_big(x: jnp.ndarray) -> jnp.ndarray:
-    """rfft2 with the factored path on whichever axes clear the CT
-    threshold (the small axis, if any, keeps its dense constants)."""
-    h, w = x.shape[-2], x.shape[-1]
-    w2 = w // 2 + 1
-    if _use_ct(w):
-        tr, ti = _ct_dft_last(x, None, w, inverse=False)
-        tr, ti = tr[..., :w2], ti[..., :w2]
-    else:
-        t = _mm(x, jnp.asarray(_rdft_fwd_cat(w)))
-        tr, ti = t[..., :w2], t[..., w2:]
-    if _use_ct(h):
-        rr, ri = _ct_dft_ax2(tr, ti, h, inverse=False)
-    else:
-        u = _emm(
-            "ij,...jk->...ik",
-            jnp.asarray(_cdft_fwd_cat(h)),
-            jnp.concatenate([tr, ti], axis=-1),
-        )
-        rr = u[..., :h, :w2] - u[..., h:, w2:]
-        ri = u[..., :h, w2:] + u[..., h:, :w2]
-    return jax.lax.complex(rr, ri)
-
-
-def _irfft2_mm_big(xf: jnp.ndarray, shape: tuple[int, int]) -> jnp.ndarray:
-    h, w = shape
-    w2 = w // 2 + 1
-    if jnp.iscomplexobj(xf):
-        sr, si = jnp.real(xf), jnp.imag(xf)
-    else:  # real "spectrum" (e.g. a magnitude)
-        sr, si = xf.astype(jnp.float32), None
-    if _use_ct(h):
-        ur, ui = _ct_dft_ax2(sr, si, h, inverse=True)
-    else:
-        if si is None:
-            u = _emm("ij,...jk->...ik", jnp.asarray(_cdft_inv_cat(h)), sr)
-            ur, ui = u[..., :h, :], u[..., h:, :]
-        else:
-            u = _emm(
-                "ij,...jk->...ik",
-                jnp.asarray(_cdft_inv_cat(h)),
-                jnp.concatenate([sr, si], axis=-1),
-            )
-            ur = u[..., :h, :w2] - u[..., h:, w2:]
-            ui = u[..., :h, w2:] + u[..., h:, :w2]
-    if _use_ct(w):
-        fr, fi = _mirror_half_spectrum(ur, ui, w, axis=-1)
-        yr, _ = _ct_dft_last(fr, fi, w, inverse=True, out_imag=False)
-        return yr
-    return _mm(
-        jnp.concatenate([ur, ui], axis=-1), jnp.asarray(_rdft_inv_cat(w))
-    )
-
-
-# ---------------------------------------------------------------------------
-# Public transforms (backend-dispatched)
-# ---------------------------------------------------------------------------
-
-
 def rfft2(x: jnp.ndarray) -> jnp.ndarray:
     """Real 2D FFT over the last two axes; spectrum shape ``(..., H, W//2+1)``.
 
     Matches ``CorrelationFlow::FFT`` (/root/reference/src/correlation_flow.cc:53-63)
     up to the (irrelevant) choice of halved axis.
     """
-    x = x.astype(jnp.float32)
-    if fft_backend() == "mm":
-        if _use_ct(x.shape[-2]) or _use_ct(x.shape[-1]):
-            return _rfft2_mm_big(x)
-        return _rfft2_mm(x)
-    return jnp.fft.rfft2(x)
+    return jnp.fft.rfft2(x.astype(jnp.float32))
 
 
 def rfft2_from_last_spectrum(g: jnp.ndarray) -> jnp.ndarray:
@@ -562,19 +71,6 @@ def rfft2_from_last_spectrum(g: jnp.ndarray) -> jnp.ndarray:
     Fourier rotator) skip the inverse-then-forward W-axis roundtrip, which
     cancels exactly: ``rfft2(irfft_last(g)) == rfft2_from_last_spectrum(g)``.
     """
-    h = g.shape[-2]
-    if fft_backend() == "mm":
-        if _use_ct(h):
-            rr, ri = _ct_dft_ax2(
-                jnp.real(g), jnp.imag(g), h, inverse=False
-            )
-            return jax.lax.complex(rr, ri)
-        w2 = g.shape[-1]
-        s = jnp.concatenate([jnp.real(g), jnp.imag(g)], axis=-1)
-        u = _emm("ij,...jk->...ik", jnp.asarray(_cdft_fwd_cat(h)), s)
-        rr = u[..., :h, :w2] - u[..., h:, w2:]
-        ri = u[..., :h, w2:] + u[..., h:, :w2]
-        return jax.lax.complex(rr, ri)
     return jnp.fft.fft(g, axis=-2)
 
 
@@ -584,66 +80,24 @@ def irfft2(xf: jnp.ndarray, shape: tuple[int, int]) -> jnp.ndarray:
     Includes the ``1/N`` normalization of ``CorrelationFlow::IFFT``
     (/root/reference/src/correlation_flow.cc:65-77).
     """
-    if fft_backend() == "mm":
-        if _use_ct(shape[0]) or _use_ct(shape[1]):
-            return _irfft2_mm_big(xf, shape)
-        return _irfft2_mm(xf, shape)
     return jnp.fft.irfft2(xf, s=shape)
 
 
 def rfft_last(x: jnp.ndarray) -> jnp.ndarray:
     """1D real FFT along the last axis (shear resamplers, ops.warp)."""
-    x = x.astype(jnp.float32)
-    if fft_backend() == "mm":
-        n = x.shape[-1]
-        n2 = n // 2 + 1
-        if _use_ct(n):
-            tr, ti = _ct_dft_last(x, None, n, inverse=False)
-            return jax.lax.complex(tr[..., :n2], ti[..., :n2])
-        t = _mm(x, jnp.asarray(_rdft_fwd_cat(n)))  # (..., 2n2) = [re | im]
-        return jax.lax.complex(t[..., :n2], t[..., n2:])
-    return jnp.fft.rfft(x, axis=-1)
+    return jnp.fft.rfft(x.astype(jnp.float32), axis=-1)
 
 
 def irfft_last(xf: jnp.ndarray, n: int) -> jnp.ndarray:
-    if fft_backend() == "mm":
-        if _use_ct(n):
-            fr, fi = _mirror_half_spectrum(
-                jnp.real(xf), jnp.imag(xf), n, axis=-1
-            )
-            yr, _ = _ct_dft_last(fr, fi, n, inverse=True, out_imag=False)
-            return yr
-        s = jnp.concatenate([jnp.real(xf), jnp.imag(xf)], axis=-1)
-        return _mm(s, jnp.asarray(_rdft_inv_cat(n)))  # re@iwr − im@iwi
     return jnp.fft.irfft(xf, n=n, axis=-1)
 
 
 def rfft_ax2(x: jnp.ndarray) -> jnp.ndarray:
     """1D real FFT along axis -2 (column shears)."""
-    x = x.astype(jnp.float32)
-    if fft_backend() == "mm":
-        n = x.shape[-2]
-        n2 = n // 2 + 1
-        if _use_ct(n):
-            tr, ti = _ct_dft_ax2(x, None, n, inverse=False)
-            return jax.lax.complex(tr[..., :n2, :], ti[..., :n2, :])
-        # f[..., k, x] = Σ_j fwd[j, k] · x[..., j, x]; [re ; im] stacked on -2.
-        t = _emm("jk,...jx->...kx", jnp.asarray(_rdft_fwd_cat(n)), x)
-        return jax.lax.complex(t[..., :n2, :], t[..., n2:, :])
-    return jnp.fft.rfft(x, axis=-2)
+    return jnp.fft.rfft(x.astype(jnp.float32), axis=-2)
 
 
 def irfft_ax2(xf: jnp.ndarray, n: int) -> jnp.ndarray:
-    if fft_backend() == "mm":
-        if _use_ct(n):
-            fr, fi = _mirror_half_spectrum(
-                jnp.real(xf), jnp.imag(xf), n, axis=-2
-            )
-            yr, _ = _ct_dft_ax2(fr, fi, n, inverse=True, out_imag=False)
-            return yr
-        # y[..., j, x] = Σ_k inv[k, j] · f[..., k, x]
-        s = jnp.concatenate([jnp.real(xf), jnp.imag(xf)], axis=-2)
-        return _emm("kj,...kx->...jx", jnp.asarray(_rdft_inv_cat(n)), s)
     return jnp.fft.irfft(xf, n=n, axis=-2)
 
 
@@ -692,9 +146,8 @@ def impulse_spectrum_pair(h: int, w: int) -> np.ndarray:
     correlation_flow.cc:46-51): a delta at ``(h//2, w//2)``.  Computed in
     closed form on the host — the DFT of ``delta[h//2, w//2]`` is
     ``exp(-2πi (k·h/2/H + l·w/2/W))`` restricted to the stored half
-    spectrum — and returned as a host ``(h, w//2+1, 2)`` float array:
-    engine construction never transfers complex64 (unimplemented on some
-    TPU runtimes) nor dispatches an eager FFT.
+    spectrum — and returned as a host ``(h, w//2+1, 2)`` float array, so
+    engine construction dispatches no eager FFT.
     """
     ky = np.arange(h)
     kx = np.arange(w // 2 + 1)

@@ -222,14 +222,11 @@ def half_polar_psr_affine(
 
 def make_cf_ops(cfg: CFConfig) -> CFOps:
     # Spectra are stored as float pairs (ops.fft.c2r): CFOps crosses jit
-    # boundaries as an argument, and persistent/boundary complex arrays are
-    # not portable across all TPU runtimes.
-    # Quad-packed taps (r4): one gather index per output fetching the
-    # contiguous 2×2 footprint — 4× fewer gather descriptors than the
-    # 4-index table (the descriptor count is what the TPU gather lowering
-    # pays for; bit-identical outputs, ops.warp.polar_quad_constants).
-    # DC suppression stays a cheap elementwise pass (fold_dc-False
-    # equivalent; measured best in r3, scripts/polarbench.py).
+    # boundaries as an argument.
+    # Quad-packed taps: one gather index per output fetching the
+    # contiguous 2×2 footprint — 4× fewer gather indices than the 4-index
+    # table (bit-identical outputs, ops.warp.polar_quad_constants).
+    # DC suppression stays a separate elementwise pass (fold_dc=False).
     scheme = cfg.polar_taps
     if scheme == "auto":
         scheme = "4tap" if cfg.height * cfg.width >= 1_000_000 else "quad"
@@ -328,6 +325,44 @@ def psr(g: jnp.ndarray, peak: jnp.ndarray) -> jnp.ndarray:
     return (peak - side_mean) / (std + 1e-7)
 
 
+def peak_stats(
+    g: jnp.ndarray,
+) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
+    """(peak, flat_argmax, sum, sum_of_squares) over the last two axes.
+
+    The argmax follows the reference's **column-major** first-maximum
+    tie-break: its response arrays are default (column-major)
+    ``Eigen::ArrayXXf`` and ``maxCoeff(&row, &col)`` traverses storage
+    order (/root/reference/src/correlation_flow.cc:160-165).  The winner is
+    the smallest column-major index over the maximum set, reported as a
+    row-major flat index; no transposed copy of ``g`` is formed.  Ties only
+    matter for bit-exact parity on constructed inputs; real correlation
+    responses never tie.
+    """
+    h, w = g.shape[-2], g.shape[-1]
+    peak = jnp.max(g, axis=(-2, -1))
+    rows = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)
+    cols = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)
+    at_max = g >= peak[..., None, None]
+    idx_cm = jnp.min(jnp.where(at_max, cols * h + rows, h * w), axis=(-2, -1))
+    idx = (idx_cm % h) * w + idx_cm // h
+    s = jnp.sum(g, axis=(-2, -1))
+    ss = jnp.sum(g * g, axis=(-2, -1))
+    return peak, idx, s, ss
+
+
+def psr_from_stats(
+    peak: jnp.ndarray, s: jnp.ndarray, ss: jnp.ndarray, n: int
+) -> jnp.ndarray:
+    """PSR from the moments of :func:`peak_stats` — identical to :func:`psr`:
+    ``side_mean = (Σg − peak)/(n−1)``; ``std = sqrt(mean((g − side_mean)²))
+    = sqrt(ss/n − 2·side_mean·s/n + side_mean²)``."""
+    side_mean = (s - peak) / (n - 1)
+    var = ss / n - 2.0 * side_mean * s / n + side_mean * side_mean
+    std = jnp.sqrt(jnp.maximum(var, 0.0))
+    return (peak - side_mean) / (std + 1e-7)
+
+
 def keyframe_filter(
     zf: jnp.ndarray,
     target_fft: jnp.ndarray,
@@ -338,7 +373,7 @@ def keyframe_filter(
 
     The reference recomputes ``Kzz`` inside every ``EstimateTrans``
     (/root/reference/src/correlation_flow.cc:150-153) even though it depends
-    only on the stored keyframe; the TPU build computes it once at keyframe
+    only on the stored keyframe; this build computes it once at keyframe
     insertion and caches it in the bank — saving two FFT-sized transforms
     per registration on the hot path.
     """
@@ -360,7 +395,7 @@ def estimate_trans(
     from the argmax of ``g = IFFT(target/(Kzz+λ) · Kxz)`` — parity with
     ``EstimateTrans`` (/root/reference/src/correlation_flow.cc:145-179),
     including the column-major first-maximum argmax tie-break (Eigen
-    ``maxCoeff`` traverses column-major storage; see ops.pallas_kernels).
+    ``maxCoeff`` traverses column-major storage; see :func:`peak_stats`).
     Batched over leading axes of ``zf``/``xf``.  Pass the precomputed
     ``filt`` (:func:`keyframe_filter`) to skip the ``Kzz`` solve.
     """
@@ -369,9 +404,6 @@ def estimate_trans(
         filt = keyframe_filter(zf, target_fft, shape, cfg)
     kxz = _kernel_spectrum(xf, zf, shape, cfg)
     g = irfft2(filt * kxz, shape)
-    # Fused single-pass peak/argmax/PSR moments (Pallas on TPU).
-    from nislam_tpu.ops.pallas_kernels import peak_stats, psr_from_stats
-
     peak, idx, s, ss = peak_stats(g)
     row = (idx // w).astype(jnp.float32)
     col = (idx % w).astype(jnp.float32)
@@ -395,7 +427,7 @@ def compute_intermedium(
     # fftshift + polar bilinear gather fused into one precomputed table
     # (quad-packed or 4-tap per CFOps.polar_scheme — equal to last-ulp,
     # chosen by size; CFConfig.polar_taps); DC suppression stays a cheap
-    # elementwise pass (scripts/polarbench.py).
+    # elementwise pass.
     resample = (
         polar_resample_quad if ops.polar_scheme == "quad" else polar_resample
     )

@@ -1,4 +1,4 @@
-"""Gather-based image resampling: the TPU replacement for OpenCV warps.
+"""Gather-based image resampling: the JAX replacement for OpenCV warps.
 
 The reference relies on three OpenCV resampling calls:
 
@@ -9,7 +9,7 @@ The reference relies on three OpenCV resampling calls:
 - ``cv::remap`` for undistortion (/root/reference/src/camera.cc:92-103).
 
 All three are bilinear gathers with different sampling grids and border
-policies.  On TPU each becomes a vectorized gather over a precomputed (or
+policies.  Here each becomes a vectorized gather over a precomputed (or
 cheaply computed in-jit) coordinate grid — fully fused by XLA with the
 surrounding spectral ops.  Everything here is batched over leading axes and
 ``vmap``-safe.
@@ -240,14 +240,13 @@ def _rot180(img: jnp.ndarray) -> jnp.ndarray:
 
 
 def rotate_wrap_fft(img: jnp.ndarray, degree: jnp.ndarray) -> jnp.ndarray:
-    """Rotation about the image center with periodic wrap — the TPU-fast
-    path: three FFT shears instead of a bilinear gather.
+    """Rotation about the image center with periodic wrap — three FFT
+    shears instead of a bilinear gather.
 
     Same dst→src map as :func:`rotate_wrap` (``R(deg)`` about ``(W/2,
     H/2)``), decomposed as ``R(θ) = Sx(−tan(θ/2)) · Sy(sin θ) ·
     Sx(−tan(θ/2))`` with each shear applied in the Fourier domain (phase
-    multiply — dense VPU work, no gathers; a random-access gather of a
-    640×480 image costs ~10 ms on TPU, the shears ~0.5 ms).  Angles beyond
+    multiply — dense elementwise work, no gathers).  Angles beyond
     ±90° are folded through an exact 180° flip so the shear factors stay
     small (|tan(θ/2)| ≤ 1).  Interpolation is sinc (Fourier) rather than
     the reference's bilinear (/root/reference/src/utils.cc:154-161) —
@@ -303,7 +302,7 @@ def rotate_wrap(img: jnp.ndarray, degree: jnp.ndarray) -> jnp.ndarray:
     forward matrix internally), sampled bilinearly with periodic wrap.
 
     ``degree`` may be a traced scalar or batched ``(...,)`` matching the
-    leading axes of ``img``; the grid is built in-jit (cos/sin + FMA — VPU
+    leading axes of ``img``; the grid is built in-jit (cos/sin + FMA — elementwise
     work that XLA fuses with the gather).
     """
     h, w = img.shape[-2], img.shape[-1]
@@ -351,9 +350,7 @@ def polar_quad_constants(
     The 2×2 bilinear footprint of every polar output is contiguous in a
     quad-packed view of ``power`` (:func:`quad_pack`), so the resample
     needs ONE gather index per output instead of four — 4× fewer gather
-    descriptors, the dominant cost of the XLA gather lowering on TPU
-    (measured: the 4-index form costs ~0.73 ms/frame in the engine context
-    at 640×480; scripts/polarbench.py).
+    indices for the same bilinear result.
 
     Returns ``(base, w4)``: ``base`` (divisor, channel) i32 flat row-major
     indices of the top-left tap (coords taken mod (h, w) — the packed view

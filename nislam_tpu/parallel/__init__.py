@@ -2,7 +2,7 @@
 
 The reference has **no** parallelism of any kind (SURVEY §2.3: one process,
 one thread, visualization-only ROS).  Everything here is a first-class
-TPU-native addition designed against the BASELINE scaling configs:
+addition designed against the BASELINE scaling configs:
 
 - :mod:`nislam_tpu.parallel.mesh` — device mesh construction
 - :mod:`nislam_tpu.parallel.batch` — data-parallel multi-sequence SLAM

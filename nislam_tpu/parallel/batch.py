@@ -8,7 +8,7 @@ end (embarrassing parallelism, exactly as SURVEY §2.3 prescribes).
 
 Batch mode runs with ``defer_optimize=True``: pose graphs are solved once
 per sequence at :meth:`BatchSlamEngine.finalize` with a vmapped LM solve (a
-batched dense Cholesky — MXU-friendly), instead of mid-sequence triggers
+batched dense Cholesky), instead of mid-sequence triggers
 (see the note on ``slam_step``).
 """
 
@@ -96,9 +96,9 @@ class BatchSlamEngine:
             )
         )
 
-        # Frontend hoisted over the whole (B, N) chunk: batched
-        # matmul-DFTs tile the MXU far better than per-frame transforms
-        # inside the scan body (same hoist as SlamEngine.run_chunk).
+        # Frontend hoisted over the whole (B, N) chunk: batched transforms
+        # instead of per-frame ones inside the scan body (same hoist as
+        # SlamEngine.run_chunk).
         feats = frontend(images, cf_ops=cf_ops, camera=camera)
         feats_t = jax.tree.map(lambda x: jnp.swapaxes(x, 0, 1), feats)
 
@@ -106,9 +106,8 @@ class BatchSlamEngine:
         # the "data" sharding propagates untouched through the scan.
         # The loop search is hoisted out of the vmapped step behind ONE
         # any-lane-stored cond: a vmapped per-lane cond would execute
-        # the full multi-candidate search every frame for every lane
-        # (~6x per-lane cost, measured), while keyframes arrive ~1 in
-        # 10 frames.
+        # the full multi-candidate search every frame for every lane,
+        # while keyframes arrive ~1 in 10 frames.
         def live(st, ft_t):
             st, out = vstep(st, ft_t)
             if config.loop_closure.to_find_loop:

@@ -11,20 +11,20 @@ the engine's plug points —
   ``shard_map`` and one gathered (nshards,) reduction picks the winner,
 - **pose-graph solve** → ``solve_pose_graph_cg`` (``parallel.solver``):
   edges shard over the same axis; every Gauss-Newton/CG iteration costs one
-  ``psum`` of a (3K,) vector over ICI.
+  ``psum`` of a (3K,) vector over the mesh.
 
 Everything else (tracking, keyframe decisions, stores, the deferred
 optimize driver) is the identical compiled logic, so a distributed run is
 trajectory-equal to the single-device engine up to solver tolerance —
 tested on the 8-virtual-device CPU mesh (tests/test_parallel.py).
 
-HBM scaling: the bank's spectra and cached filters — the O(K·H·W) state —
+Memory scaling: the bank's spectra and cached filters — the O(K·H·W) state —
 are placed with ``NamedSharding(P("bank"))``, so per-device map memory
 shrinks 1/N with mesh size; per-slot scalars (poses, ids, grid cells) stay
 replicated (they are KBs, and the tracker reads them every frame).
 
 The reference has no distributed layer at all (SURVEY §2.3); this is the
-TPU-native scaling story for its unbounded in-RAM map (include/map.h:70-76).
+scaling story for its unbounded in-RAM map (include/map.h:70-76).
 """
 
 from __future__ import annotations

@@ -3,8 +3,7 @@
 The other data-parallel shape (``parallel.batch``) vmaps lanes in lockstep:
 every data-dependent ``lax.cond`` lowers to both-branches-per-lane, so the
 per-keyframe loop search and filter computation run every frame for every
-lane (measured ~6× per-lane on this machine — docs/PROFILE_r3.md §4; the
-any-lane hoist recovers part of it, but lockstep remains).
+lane (the any-lane hoist recovers part of it, but lockstep remains).
 
 ``shard_map`` removes the lockstep entirely: each device runs the REAL
 single-lane program — the same scan `SlamEngine.run_chunk` compiles, with
@@ -14,7 +13,7 @@ frames/s scales linearly with devices by construction; this is the
 multi-chip deployment shape for BASELINE config 4.
 
 Reference parity: the reference is single-process/single-sequence
-(/root/reference/main.cpp:32-99); this engine is a TPU-native addition.
+(/root/reference/main.cpp:32-99); this engine is an addition.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Device mesh helpers.
 
-The TPU-native "communication backend": meshes + NamedSharding over ICI/DCN
-with XLA collectives, replacing nothing in the reference (it has no
+The "communication backend": meshes + NamedSharding with XLA collectives
+(NCCL on GPUs), replacing nothing in the reference (it has no
 distributed layer, SURVEY §2.3) but required by the BASELINE scaling
 configs.  Axis convention:
 
@@ -55,8 +55,7 @@ def init_distributed(
     """Multi-host bring-up: ``jax.distributed.initialize`` with arguments
     auto-detected from the cluster environment when omitted.  Call once per
     host before ``make_mesh``; afterwards ``jax.devices()`` spans every
-    host and the same mesh/axis specs shard over ICI within a slice and DCN
-    across slices.  Returns the global device count.
+    host and the same mesh/axis specs shard across hosts.  Returns the global device count.
     """
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

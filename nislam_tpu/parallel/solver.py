@@ -2,17 +2,17 @@
 
 BASELINE config 5: the pose-graph solve for multi-host maps.  The dense
 LM/Cholesky solver (``nislam_tpu.core.pose_graph``) is ideal up to a few
-thousand poses on one chip; at pod scale the edges are sharded across
+thousand poses on one chip; at larger scale the edges are sharded across
 devices and the reduced normal equations are never materialized — each
 Gauss-Newton step solves ``(JᵀJ + μD) δ = −Jᵀr`` **matrix-free** with
 Jacobi-preconditioned conjugate gradients, where every Hessian-vector
 product is assembled from the local edge shard and combined with one
-``psum`` over the mesh axis (the TPU-native analogue of a distributed
+``psum`` over the mesh axis (the analogue of a distributed
 Schur solve; cf. SURVEY §2.3).
 
 Poses are replicated (they are tiny: 3K floats); edges — the O(E) data —
 are sharded.  The whole solver runs inside one ``shard_map``, so every CG
-iteration costs exactly one ``psum`` of a (3K,) vector over ICI.
+iteration costs exactly one ``psum`` of a (3K,) vector over the mesh.
 
 Same residual/whitening/pinning semantics as the dense solver (and the
 Ceres reference it mirrors — /root/reference/src/optimization_2d/).
@@ -29,7 +29,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from nislam_tpu.core.pose_graph import PoseGraphProblem, _edge_jacobians, residuals
-from nislam_tpu.core.se2 import normalize_angle
+from nislam_tpu.core.se2 import einsum, normalize_angle
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,10 +47,10 @@ def _local_jtj_vec(
     ja, jb, _ = _edge_jacobians(poses, prob, jnp.float32(1.0))
     xa = x[prob.from_slot]  # (E, 3)
     xb = x[prob.to_slot]
-    jx = jnp.einsum("eij,ej->ei", ja, xa) + jnp.einsum("eij,ej->ei", jb, xb)
+    jx = einsum("eij,ej->ei", ja, xa) + einsum("eij,ej->ei", jb, xb)
     out = jnp.zeros_like(x)
-    out = out.at[prob.from_slot].add(jnp.einsum("eij,ei->ej", ja, jx))
-    out = out.at[prob.to_slot].add(jnp.einsum("eij,ei->ej", jb, jx))
+    out = out.at[prob.from_slot].add(einsum("eij,ei->ej", ja, jx))
+    out = out.at[prob.to_slot].add(einsum("eij,ei->ej", jb, jx))
     return out
 
 
@@ -61,11 +61,11 @@ def _local_grad_and_diag(
     r = residuals(poses, prob, jnp.float32(1.0))
     ja, jb, _ = _edge_jacobians(poses, prob, jnp.float32(1.0))
     g = jnp.zeros_like(poses)
-    g = g.at[prob.from_slot].add(jnp.einsum("eij,ei->ej", ja, r))
-    g = g.at[prob.to_slot].add(jnp.einsum("eij,ei->ej", jb, r))
+    g = g.at[prob.from_slot].add(einsum("eij,ei->ej", ja, r))
+    g = g.at[prob.to_slot].add(einsum("eij,ei->ej", jb, r))
     d = jnp.zeros_like(poses)
-    d = d.at[prob.from_slot].add(jnp.einsum("eij,eij->ej", ja, ja))
-    d = d.at[prob.to_slot].add(jnp.einsum("eij,eij->ej", jb, jb))
+    d = d.at[prob.from_slot].add(einsum("eij,eij->ej", ja, ja))
+    d = d.at[prob.to_slot].add(einsum("eij,eij->ej", jb, jb))
     cost = 0.5 * jnp.sum(r * r)
     return g, d, cost
 

@@ -1,15 +1,12 @@
 """Tracing & profiling utilities (SURVEY §5: the reference has only ad-hoc
-``std::chrono`` per-frame prints, /root/reference/main.cpp:61-65; the TPU
-build provides real tooling).
+``std::chrono`` per-frame prints, /root/reference/main.cpp:61-65).
 
 - :class:`StageTimer` — named host-side wall-clock accumulators with the
   per-frame ms print as a formatting option (CLI parity with the
   reference's stdout),
 - :func:`trace` — context manager around ``jax.profiler`` emitting a
   TensorBoard-loadable trace directory,
-- :func:`device_fence` — an honest completion fence: a tiny device→host
-  readback (``jax.block_until_ready`` alone can return early on relayed
-  backends — see bench.py).
+- :func:`device_fence` — block until a pytree's device work finished.
 """
 
 from __future__ import annotations
@@ -17,33 +14,33 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
-
-import numpy as np
+from typing import Callable, Dict, Iterator
 
 
 def device_fence(x) -> None:
-    """Block until ``x``'s computation really finished (d2h readback)."""
+    """Block until every array of the pytree ``x`` is computed."""
     import jax
 
-    leaf = jax.tree_util.tree_leaves(x)[0]
-    np.asarray(jax.numpy.ravel(leaf)[0])
+    jax.block_until_ready(x)
 
 
 class StageTimer:
-    """Accumulate wall-clock per named stage; print summaries."""
+    """Accumulate wall-clock per named stage; print summaries.
 
-    def __init__(self) -> None:
+    ``clock`` returns seconds (default ``time.perf_counter``)."""
+
+    def __init__(self, clock: Callable[[], float] = time.perf_counter) -> None:
+        self.clock = clock
         self.total: Dict[str, float] = defaultdict(float)
         self.count: Dict[str, int] = defaultdict(int)
 
     @contextlib.contextmanager
     def stage(self, name: str, *, fence=None) -> Iterator[None]:
-        t0 = time.perf_counter()
+        t0 = self.clock()
         yield
         if fence is not None:
             device_fence(fence)
-        dt = time.perf_counter() - t0
+        dt = self.clock() - t0
         self.total[name] += dt
         self.count[name] += 1
 

@@ -30,7 +30,7 @@ def main():
         if e.get("ph") != "X" or "dur" not in e:
             continue
         pname = pid_names.get(e["pid"], "")
-        if "TPU" not in pname:
+        if "/device:GPU" not in pname:
             continue
         name = e["name"]
         if any(name.startswith(wname) for wname in wrappers):

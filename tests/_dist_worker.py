@@ -25,9 +25,6 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 

@@ -290,27 +290,22 @@ def test_compute_pose_jit_and_vmap(rng):
 
 
 def test_rotate_spectrum_fusion_matches_unfused(rng):
-    """rotate_wrap_fft_spectrum == rfft2(rotate_wrap_fft) on both backends."""
-    from nislam_tpu.ops.fft import rfft2, set_fft_backend
+    """rotate_wrap_fft_spectrum == rfft2(rotate_wrap_fft)."""
+    from nislam_tpu.ops.fft import rfft2
     from nislam_tpu.ops.warp import rotate_wrap_fft, rotate_wrap_fft_spectrum
 
     img = rng.random((24, 32), dtype=np.float32)
-    try:
-        for backend in ("xla", "mm"):
-            set_fft_backend(backend)
-            for deg in (0.0, 17.3, -44.0, 135.0, -170.0):
-                want = np.asarray(rfft2(rotate_wrap_fft(jnp.asarray(img), jnp.asarray(deg))))
-                got = np.asarray(rotate_wrap_fft_spectrum(jnp.asarray(img), jnp.asarray(deg)))
-                np.testing.assert_allclose(got, want, atol=2e-4)
-    finally:
-        set_fft_backend(None)
+    for deg in (0.0, 17.3, -44.0, 135.0, -170.0):
+        want = np.asarray(rfft2(rotate_wrap_fft(jnp.asarray(img), jnp.asarray(deg))))
+        got = np.asarray(rotate_wrap_fft_spectrum(jnp.asarray(img), jnp.asarray(deg)))
+        np.testing.assert_allclose(got, want, atol=2e-4)
 
 
 @pytest.mark.parametrize("sigma", [0.2, 0.5])
 def test_gaussian_kernel_matches_literal_reference_formula(rng, sigma):
     """The gaussian kernel spectrum equals the literal reference formula
     (/root/reference/src/correlation_flow.cc:181-206) including the xx/zz
-    energy terms the TPU build drops algebraically: K_ref =
+    energy terms this build drops algebraically: K_ref =
     exp(-(xx+zz-2*IFFT(xf conj(zf)))/(N*sigma^2)) / max K_ref must equal
     exp(e - max e) with e = 2*IFFT(xf conj(zf))/(N*sigma^2)."""
     import dataclasses
@@ -478,44 +473,16 @@ def test_rotation_channel_64_matches_full(rng, angle_deg):
 
 
 # ---------------------------------------------------------------------------
-# Cooley–Tukey-factored matmul-DFT (the HD-axis path, ops.fft._use_ct)
+# Spectral transforms (ops.fft) against numpy at composite and prime sizes
 # ---------------------------------------------------------------------------
 
 
 class TestFactoredDFT:
-    """The factored path must be oracle-exact at every composite size.
-
-    Production only enables it for axes ≥ NISLAM_CT_MIN (default 1024 —
-    the reference HD config's 1200/1600, config_HD.yaml:9-17); the tests
-    drop the threshold so the same code paths run at CPU-friendly sizes.
-    """
-
-    def setup_method(self):
-        from nislam_tpu.ops import fft as F
-
-        F.set_fft_backend("mm")
-        F.set_ct_min(8)
-
-    def teardown_method(self):
-        from nislam_tpu.ops import fft as F
-
-        F.set_fft_backend(None)
-        F.set_ct_min(None)
-
-    def test_ct_split(self):
-        from nislam_tpu.ops.fft import _ct_split
-
-        assert _ct_split(1600) == (40, 40)
-        assert _ct_split(1200) == (30, 40)
-        assert _ct_split(720) == (24, 30)
-        assert _ct_split(97) is None  # prime
-        assert _ct_split(2 * 101) is None  # near-prime: no flop win
+    """Every ``ops.fft`` transform is oracle-exact at composite, prime and
+    mixed axis sizes, batched and under vmap."""
 
     @pytest.mark.parametrize("h,w", [(48, 64), (36, 100), (60, 45), (21, 33)])
     def test_rfft2_irfft2_oracle(self, rng, h, w):
-        from nislam_tpu.ops.fft import _use_ct
-
-        assert _use_ct(h) and _use_ct(w)
         x = rng.standard_normal((h, w)).astype(np.float32)
         got = np.asarray(rfft2(jnp.asarray(x)))
         np.testing.assert_allclose(got, np.fft.rfft2(x), atol=2e-4)
@@ -523,7 +490,7 @@ class TestFactoredDFT:
         np.testing.assert_allclose(back, x, atol=2e-5)
 
     def test_mixed_axes(self, rng):
-        """One axis factored, the other dense (e.g. prime)."""
+        """A prime axis beside a composite one."""
         x = rng.standard_normal((37, 48)).astype(np.float32)  # 37 prime
         np.testing.assert_allclose(
             np.asarray(rfft2(jnp.asarray(x))), np.fft.rfft2(x), atol=2e-4
@@ -577,14 +544,11 @@ class TestFactoredDFT:
         np.testing.assert_allclose(got, np.fft.rfft2(x), atol=2e-4)
 
     def test_registration_recovers_transform_via_ct(self, rng):
-        """End-to-end gate: compute_pose at a CT-active size recovers a
-        known (tx, ty, θ) — the factored spectra feed the whole KCC chain."""
+        """End-to-end gate: compute_pose on the full polar grid recovers a
+        known (tx, ty, θ) — these spectra feed the whole KCC chain."""
         import dataclasses
 
         cfg = dataclasses.replace(CFG, half_polar=False)
-        from nislam_tpu.ops.fft import _use_ct
-
-        assert _use_ct(cfg.height) and _use_ct(cfg.width)
         ops = make_cf_ops(cfg)
         base = _texture(rng)
         angle, dx, dy = -9.0, 4, -3

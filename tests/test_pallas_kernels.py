@@ -1,4 +1,5 @@
-"""Fused peak-stats kernel: jnp path vs oracle + PSR-from-moments parity."""
+"""Peak/argmax/PSR reduction (ops.registration.peak_stats) against numpy
+oracles, including the reference's column-major first-max tie-break."""
 
 import numpy as np
 import pytest
@@ -6,8 +7,20 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from nislam_tpu.ops.pallas_kernels import peak_stats, psr_from_stats
-from nislam_tpu.ops.registration import psr
+from nislam_tpu.ops.registration import peak_stats, psr, psr_from_stats
+
+
+def _np_peak_stats(g):
+    """Oracle: argmax over the column-major flattening (Eigen maxCoeff
+    order), reported as a row-major flat index."""
+    g = np.asarray(g, np.float64)
+    h, w = g.shape[-2:]
+    lead = g.shape[:-2]
+    cm = np.swapaxes(g, -2, -1).reshape(*lead, h * w)
+    icm = cm.argmax(-1)
+    idx = (icm % h) * w + icm // h
+    flat = g.reshape(*lead, h * w)
+    return flat.max(-1), idx, flat.sum(-1), (flat * flat).sum(-1)
 
 
 def test_peak_stats_matches_oracle(rng):
@@ -24,13 +37,13 @@ def test_peak_stats_matches_oracle(rng):
 def test_first_max_tiebreak(rng):
     """Column-major first-max wins on ties (Eigen maxCoeff traversal order,
     /root/reference/src/correlation_flow.cc:160-165): (5, 1) precedes (2, 3)
-    when scanning down columns."""
+    when scanning down columns — eagerly and under jit."""
     g = np.zeros((8, 8), np.float32)
     g[2, 3] = 5.0  # column-major linear index 3*8+2 = 26
     g[5, 1] = 5.0  # column-major linear index 1*8+5 = 13 → first
     _, idx, _, _ = peak_stats(jnp.asarray(g))
     assert int(idx) == 5 * 8 + 1
-    _, idx2, _, _ = peak_stats(jnp.asarray(g), force="jnp")
+    _, idx2, _, _ = jax.jit(peak_stats)(jnp.asarray(g))
     assert int(idx2) == 5 * 8 + 1
 
 
@@ -42,67 +55,39 @@ def test_psr_from_stats_matches_reference_psr(rng):
     np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
 
 
-def test_pallas_path_interpret_mode(rng):
-    """Exercise the actual Pallas kernel via the TPU interpreter on CPU."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    g = jnp.asarray(rng.standard_normal((16, 128)).astype(np.float32))
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            peak, idx, s, ss = peak_stats(g, force="pallas")
-    except Exception as exc:  # pragma: no cover - interpreter availability
-        pytest.skip(f"pallas interpret mode unavailable: {exc}")
-    gn = np.asarray(g).ravel()
-    assert float(peak) == pytest.approx(gn.max())
-    assert int(idx) == int(gn.argmax())
-    np.testing.assert_allclose(float(s), gn.sum(), rtol=1e-4)
-
-
 class TestBlockedPeakStats:
-    """Row-block-streamed kernel for oversized responses (the HD path)."""
-
-    def _run(self, g, block_rows):
-        from jax.experimental.pallas import tpu as pltpu
-
-        from nislam_tpu.ops.pallas_kernels import _pallas_peak_stats_blocked
-
-        try:
-            with pltpu.force_tpu_interpret_mode():
-                return jax.jit(
-                    lambda x: _pallas_peak_stats_blocked(x, block_rows)
-                )(g)
-        except Exception as exc:  # pragma: no cover
-            pytest.skip(f"pallas interpret mode unavailable: {exc}")
+    """Batched responses, including sizes that are not powers of two."""
 
     @pytest.mark.parametrize("h,w,bh", [(32, 128, 8), (20, 128, 8), (24, 256, 24)])
     def test_matches_jnp_path(self, rng, h, w, bh):
-        """Multi-block (incl. a masked partial tail at h=20) equals the
-        multi-pass oracle bit-for-bit."""
-        g = jnp.asarray(rng.standard_normal((2, h, w)).astype(np.float32))
-        peak, idx, s, ss = self._run(g, bh)
-        wpeak, widx, ws, wss = peak_stats(g, force="jnp")
-        np.testing.assert_array_equal(np.asarray(peak), np.asarray(wpeak))
-        np.testing.assert_array_equal(np.asarray(idx), np.asarray(widx))
-        np.testing.assert_allclose(np.asarray(s), np.asarray(ws), rtol=1e-5)
-        np.testing.assert_allclose(np.asarray(ss), np.asarray(wss), rtol=1e-5)
+        """A (bh, h, w) batch equals the numpy oracle: peak and index
+        exactly, moments to float32 summation order."""
+        g = rng.standard_normal((bh, h, w)).astype(np.float32)
+        peak, idx, s, ss = jax.jit(peak_stats)(jnp.asarray(g))
+        wpeak, widx, ws, wss = _np_peak_stats(g)
+        np.testing.assert_array_equal(np.asarray(peak), wpeak.astype(np.float32))
+        np.testing.assert_array_equal(np.asarray(idx), widx)
+        np.testing.assert_allclose(np.asarray(s), ws, rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(np.asarray(ss), wss, rtol=1e-5)
 
     def test_tiebreak_across_blocks(self, rng):
-        """Equal maxima in different row blocks: the column-major-first
-        winner must be chosen regardless of block order.  (5,1) has
-        column-major index 1*h+5 < (17,0)'s 0*h+17?  No: 0*24+17=17 <
-        1*24+5=29 — so the LATER row block's (17,0) wins."""
+        """Equal maxima far apart in row order: (17, 0) has column-major
+        index 0*24+17 = 17 < (5, 1)'s 1*24+5 = 29, so the LATER row wins."""
         h, w = 24, 128
         g = np.zeros((h, w), np.float32)
-        g[5, 1] = 7.0   # block 0 (rows 0-7), cm idx = 1*24+5 = 29
-        g[17, 0] = 7.0  # block 2 (rows 16-23), cm idx = 0*24+17 = 17 → first
-        peak, idx, s, ss = self._run(jnp.asarray(g), 8)
+        g[5, 1] = 7.0
+        g[17, 0] = 7.0
+        peak, idx, s, ss = peak_stats(jnp.asarray(g))
         assert int(idx) == 17 * w + 0
-        _, widx, _, _ = peak_stats(jnp.asarray(g), force="jnp")
-        assert int(idx) == int(widx)
+        assert int(idx) == int(_np_peak_stats(g)[1])
 
     def test_single_batch_and_3d(self, rng):
-        g = jnp.asarray(rng.standard_normal((16, 128)).astype(np.float32))
-        peak, idx, s, ss = self._run(g, 8)
-        gn = np.asarray(g).ravel()
+        g = rng.standard_normal((16, 128)).astype(np.float32)
+        peak, idx, s, ss = peak_stats(jnp.asarray(g))
+        gn = g.ravel()
         assert float(peak) == pytest.approx(gn.max())
         assert int(idx) == int(gn.argmax())
+        g3 = rng.standard_normal((2, 3, 16, 128)).astype(np.float32)
+        peak3, idx3, _, _ = peak_stats(jnp.asarray(g3))
+        assert peak3.shape == idx3.shape == (2, 3)
+        np.testing.assert_array_equal(np.asarray(idx3), _np_peak_stats(g3)[1])

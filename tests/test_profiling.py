@@ -1,25 +1,39 @@
 """Profiling utilities (SURVEY §5: the one aux subsystem without tests)."""
 
 import os
-import time
 
 import numpy as np
+import pytest
 
 import jax.numpy as jnp
 
 from nislam_tpu.utils.profiling import StageTimer, device_fence, trace
 
 
+class _FakeClock:
+    """Deterministic clock: ``advance`` moves time, nothing sleeps."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def __call__(self):
+        return self.now
+
+    def advance(self, dt):
+        self.now += dt
+
+
 def test_stage_timer_accumulates_and_summarizes():
-    t = StageTimer()
+    clock = _FakeClock()
+    t = StageTimer(clock=clock)
     for _ in range(3):
         with t.stage("fast"):
-            time.sleep(0.002)
+            clock.advance(0.002)
     with t.stage("slow"):
-        time.sleep(0.01)
+        clock.advance(0.01)
     assert t.count["fast"] == 3 and t.count["slow"] == 1
-    assert t.total["fast"] >= 3 * 0.002
-    assert t.mean_ms("slow") >= 10.0
+    assert t.total["fast"] == pytest.approx(3 * 0.002)
+    assert t.mean_ms("slow") == pytest.approx(10.0)
     s = t.summary()
     # Sorted by total descending; both stages present with counts.
     assert s.index("slow") < s.index("fast")
